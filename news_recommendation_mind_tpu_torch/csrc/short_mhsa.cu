@@ -4,9 +4,11 @@
 // fully-masked article comes out all-zero, never NaN).
 //
 // Replaces the TPU kernel news_recommendation_mind_tpu/ops/pallas_mhsa.py
-// _mhsa_fwd_impl (pl.pallas_call at :195, entry short_mhsa :303), the
-// forward without prob dropout: serving is deterministic, and the backward
-// and the dropout bits come with the training slice.
+// _mhsa_fwd_impl (pl.pallas_call at :195, entry short_mhsa :303), prob
+// dropout included (:118-121): the masked probabilities sig * m are
+// dropped after the softmax, by the Philox bits of csrc/philox.cuh keyed
+// by (article, head, query row, key column), which the backward
+// (csrc/short_mhsa_bwd.cu) draws again.
 //
 // Bound: bytes. Per (article, head) it reads S x hd of q, k and v and
 // writes S x hd of output, and does 4*S*S*hd flops: at S = 30, hd = 64
@@ -30,6 +32,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -42,11 +45,12 @@ size_t smem_bytes(int seq, int hd) {
   return sizeof(float) * (3 * seq * ld + seq * (seq + 1) + seq);
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 mhsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const float* __restrict__ key_mask,
-         T* __restrict__ out, int seq, int hidden, int hd, float scale) {
+         T* __restrict__ out, int seq, int hidden, int hd, float scale,
+         uint64_t seed, uint32_t thresh, float keep_prob) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   const int pld = seq + 1;
@@ -103,6 +107,25 @@ mhsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
+  if constexpr (kDrop) {
+    // inverted dropout of the masked probabilities, one Philox call per
+    // four key columns of a query row
+    const int groups = (seq + 3) >> 2;
+    for (int i = threadIdx.x; i < seq * groups; i += kThreads) {
+      const int r = i / groups, g = i - r * groups;
+      const nrmt::Philox4 bits = nrmt::attn_bits(seed, u, head, r, g);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * g + j;
+        if (c < seq) {
+          ps[r * pld + c] = nrmt::drop_value(ps[r * pld + c], bits.w[j],
+                                             thresh, keep_prob);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
   // out = P v, written at column head*hd of the [U*S, H] output
   for (int i = threadIdx.x; i < seq * hd; i += kThreads) {
     const int r = i / hd, c = i - r * hd;
@@ -117,31 +140,36 @@ mhsa_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* mask,
-            void* out, int u, int seq, int hidden, int n_heads,
+            void* out, int u, int seq, int hidden, int n_heads, int drop,
+            uint64_t seed, uint32_t thresh, float keep_prob,
             cudaStream_t stream) {
   const int hd = hidden / n_heads;
   const size_t smem = smem_bytes(seq, hd);
+  auto kernel = drop ? mhsa_fwd<T, true> : mhsa_fwd<T, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mhsa_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(u, n_heads);
-  mhsa_fwd<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(mask),
       static_cast<T*>(out), seq, hidden, hd,
-      1.0f / sqrtf(static_cast<float>(hd)));
+      1.0f / sqrtf(static_cast<float>(hd)), seed, thresh, keep_prob);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// drop != 0 applies inverted dropout to the probabilities: keep where the
+// element's Philox word <= thresh, kept values divided by keep_prob
 extern "C" int nrmt_short_mhsa(const void* q, const void* k, const void* v,
                                const void* key_mask, void* out, int u,
-                               int seq, int hidden, int n_heads, int dtype,
-                               void* stream) {
+                               int seq, int hidden, int n_heads, int drop,
+                               unsigned long long seed, unsigned int thresh,
+                               float keep_prob, int dtype, void* stream) {
   if (u < 0 || seq <= 0 || seq > kMaxSeq || n_heads <= 0 ||
       n_heads > 65535 || hidden % n_heads != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -149,11 +177,12 @@ extern "C" int nrmt_short_mhsa(const void* q, const void* k, const void* v,
   if (u == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == nrmt::kFloat32) {
-    return launch<float>(q, k, v, key_mask, out, u, seq, hidden, n_heads, st);
+    return launch<float>(q, k, v, key_mask, out, u, seq, hidden, n_heads,
+                         drop, seed, thresh, keep_prob, st);
   }
   if (dtype == nrmt::kBFloat16) {
     return launch<__nv_bfloat16>(q, k, v, key_mask, out, u, seq, hidden,
-                                 n_heads, st);
+                                 n_heads, drop, seed, thresh, keep_prob, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,14 +1,22 @@
-"""Experiment wiring: build the configured model.
+"""Experiment wiring: build the configured model and its train loader.
 
-The port of ``build_model`` (news_recommendation_mind_tpu/experiment.py:
-129-158) for ``model="plm"``; the TwoTower and XFormer families come with
-their slices.
+The port of ``DataBundle``, ``build_model`` and ``build_train_loader``
+(news_recommendation_mind_tpu/experiment.py:40-46, 129-158, 355-373) for
+``model="plm"``; the TwoTower and XFormer families come with their slices,
+``build_data`` (tsv parsing, tokenizers) and the HF weight loaders with
+theirs, so a caller fills the ``DataBundle`` itself and a model starts
+from its seed.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 
 from .config import Config
+from .data.cache import Behaviors, NewsCache
+from .data.loader import TrainLoader
 from .device import DeviceLike, resolve_device
 from .models.bert import BertModel, bert_variant
 from .models.plm import PLM
@@ -39,3 +47,27 @@ def build_model(cfg: Config, vocab_size: int,
     model = PLM(bert, user_enc, hidden_dim=variant.hidden_size,
                 debias=cfg.debias, generator=g)
     return model.to(dev).eval()
+
+
+@dataclass
+class DataBundle:
+    tokenizer: object
+    news: Dict[str, NewsCache]          # per split
+    behaviors: Dict[str, Behaviors]     # per split
+    user_num: int
+    vocab_size: int
+
+
+def build_train_loader(cfg: Config, data: DataBundle,
+                       emit_tokens: Optional[bool] = None) -> TrainLoader:
+    if emit_tokens is None:
+        emit_tokens = not cfg.device_gather
+    # news-level dedup applies to the news-tower families
+    dedup = cfg.dedup_news and cfg.model in ("twotower", "plm")
+    return TrainLoader(
+        data.news["train"], data.behaviors["train"],
+        batch_size=cfg.batch_size, npratio=cfg.npratio,
+        his_size=cfg.his_size, signal_length=cfg.signal_length,
+        shuffle_pos=cfg.shuffle_pos, descend_history=cfg.descend_history,
+        seed=cfg.seed,
+        emit_tokens=emit_tokens, dedup=dedup)

@@ -5,9 +5,15 @@ models/bert.py (:64-192, :564-593, :770-960): embeddings (word, position
 ``[:S]``, token-type row 0) and a plain LayerNorm, then layers that keep
 the residual stream flat as [B·S, H], with ``short_mhsa`` for attention and
 ``fused_add_ln`` for both residual norms, then the tanh / gelu_cls / cls
-pooler. Parameters are float32; dense layers compute in the model dtype
-(bfloat16 by default) and the norms keep float32 scale and bias, the JAX
-package's dtype policy. Other attention types and sequences longer than
+pooler. With ``deterministic=False`` the three dropouts of the JAX model
+run: hidden dropout on the embeddings (a plain dropout, :903) and on each
+sublayer's output inside ``fused_add_ln``, and attention-prob dropout
+inside ``short_mhsa``. Where JAX draws ``make_rng("dropout")`` per call
+site, each site here gets its own seed, folded from the call's ``seed``
+and the site's index, so a recomputed forward (``torch.utils.checkpoint``)
+draws the same bits. Parameters are float32; dense layers compute in the
+model dtype (bfloat16 by default) and the norms keep float32 scale and
+bias, the JAX package's dtype policy. Other attention types and sequences longer than
 64 tokens come with the XFormer slice.
 """
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout_bits import fold_seed, ln_keep_mask
 from ..ops.fused_add_ln import fused_add_ln
 from ..ops.short_mhsa import MAX_SEQ, short_mhsa
 
@@ -35,6 +42,8 @@ class BertVariantConfig:
     max_position: int = 512
     type_vocab_size: int = 2
     eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     pooler: str = "tanh"              # tanh | gelu_cls | cls
 
     def replace(self, **kw) -> "BertVariantConfig":
@@ -114,17 +123,22 @@ class LayerNorm(nn.Module):
 
 
 class _ResidualNorm(nn.Module):
-    """``LayerNorm(x + res)`` through the fused kernel, with the same
-    scale/bias parameters as ``LayerNorm``."""
+    """``LayerNorm(x + dropout(res))`` through the fused kernel, with the
+    same scale/bias parameters as ``LayerNorm``; ``seed`` is None when the
+    call is deterministic."""
 
-    def __init__(self, hidden: int, eps: float):
+    def __init__(self, hidden: int, eps: float, p_drop: float = 0.0):
         super().__init__()
         self.eps = eps
+        self.p_drop = p_drop
         self.weight = nn.Parameter(torch.ones(hidden))
         self.bias = nn.Parameter(torch.zeros(hidden))
 
-    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
-        return fused_add_ln(x, res, self.weight, self.bias, eps=self.eps)
+    def forward(self, x: torch.Tensor, res: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
+        p = 0.0 if seed is None else self.p_drop
+        return fused_add_ln(x, res, self.weight, self.bias, eps=self.eps,
+                            p_drop=p, seed=seed or 0)
 
 
 class _SelfAttention(nn.Module):
@@ -135,14 +149,17 @@ class _SelfAttention(nn.Module):
         super().__init__()
         H = c.hidden_size
         self.num_heads = c.num_heads
+        self.p_drop = c.attention_dropout
         self.query = Dense(H, H, dtype, generator)
         self.key = Dense(H, H, dtype, generator)
         self.value = Dense(H, H, dtype, generator)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
-                seq_len: int) -> torch.Tensor:
+                seq_len: int, seed: Optional[int] = None) -> torch.Tensor:
+        p = 0.0 if seed is None else self.p_drop
         return short_mhsa(self.query(x), self.key(x), self.value(x),
-                          attn_mask, self.num_heads, seq_len=seq_len)
+                          attn_mask, self.num_heads, p_drop=p,
+                          seq_len=seq_len, seed=seed or 0)
 
 
 class _Layer(nn.Module):
@@ -152,18 +169,22 @@ class _Layer(nn.Module):
         H, F_ = c.hidden_size, c.intermediate_size
         self.attention = _SelfAttention(c, dtype, generator)
         self.attn_out = Dense(H, H, dtype, generator)
-        self.attn_norm = _ResidualNorm(H, c.eps)
+        self.attn_norm = _ResidualNorm(H, c.eps, c.hidden_dropout)
         self.ffn_in = Dense(H, F_, dtype, generator)
         self.ffn_out = Dense(F_, H, dtype, generator)
-        self.ffn_norm = _ResidualNorm(H, c.eps)
+        self.ffn_norm = _ResidualNorm(H, c.eps, c.hidden_dropout)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
-                seq_len: int) -> torch.Tensor:
-        attn = self.attn_out(self.attention(x, attn_mask, seq_len))
-        x = self.attn_norm(x, attn)
+                seq_len: int, seed: Optional[int] = None) -> torch.Tensor:
+        """``seed``: this layer's dropout seed, None when deterministic;
+        its three dropout sites fold their own seeds from it."""
+        s0, s1, s2 = ((None,) * 3 if seed is None else
+                      (fold_seed(seed, i) for i in range(3)))
+        attn = self.attn_out(self.attention(x, attn_mask, seq_len, s0))
+        x = self.attn_norm(x, attn, s1)
         # flax nn.gelu is the tanh approximation
         ff = self.ffn_out(F.gelu(self.ffn_in(x), approximate="tanh"))
-        return self.ffn_norm(x, ff)
+        return self.ffn_norm(x, ff, s2)
 
 
 class BertModel(nn.Module):
@@ -193,8 +214,12 @@ class BertModel(nn.Module):
             [_Layer(c, dtype, g) for _ in range(c.num_layers)])
         self.pooler = Dense(H, H, dtype, g) if c.pooler != "cls" else None
 
-    def forward(self, input_ids: torch.Tensor, attn_mask: torch.Tensor
+    def forward(self, input_ids: torch.Tensor, attn_mask: torch.Tensor,
+                deterministic: bool = True, seed: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``deterministic=False`` turns the dropouts on, all drawn from
+        the 64-bit ``seed``: site 0 is the embedding dropout, site i + 1
+        layer i."""
         c, dt = self.cfg, self.dtype
         B, S = input_ids.shape
         if S > MAX_SEQ:
@@ -208,8 +233,14 @@ class BertModel(nn.Module):
             emb = emb + self.token_type_embeddings[0][None, None].to(dt)
         x = self.embed_norm(emb).reshape(B * S, H)
         attn_mask = attn_mask.to(dt)
-        for layer in self.layers:
-            x = layer(x, attn_mask, S)
+        if not deterministic and c.hidden_dropout > 0.0:
+            keep = ln_keep_mask(fold_seed(seed, 0), B * S, H,
+                                c.hidden_dropout, x.device)
+            x = torch.where(keep, x / (1.0 - c.hidden_dropout),
+                            torch.zeros_like(x))
+        for i, layer in enumerate(self.layers):
+            x = layer(x, attn_mask, S,
+                      None if deterministic else fold_seed(seed, i + 1))
         x = x.reshape(B, S, H)
         return x, self._pool(x)
 

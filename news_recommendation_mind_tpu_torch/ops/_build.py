@@ -36,16 +36,40 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {"fused_add_ln": 0, "short_mhsa": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused_add_ln": 0, "fused_add_ln_bwd": 0, "ln_keep_mask": 0,
+    "short_mhsa": 0, "short_mhsa_bwd": 0, "attn_keep_mask": 0,
+    "fused_adam": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
+# dropout arguments: drop flag, 64-bit seed, keep threshold, keep_prob
+_DROP = [_I, ctypes.c_ulonglong, ctypes.c_uint, _F]
 _SIGNATURES = {
-    # x, res, scale, bias, y, mean, rstd, n, h, eps, dtype, stream
-    "nrmt_fused_add_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          ctypes.c_float, _I, _P],
-    # q, k, v, key_mask, out, u, s, h, n_heads, dtype, stream
-    "nrmt_short_mhsa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, res, scale, bias, y, mean, rstd, n, h, eps, dropout, dtype, stream
+    "nrmt_fused_add_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP,
+                          _I, _P],
+    # dy, x, res, mean, rstd, scale, dx, dres, partials, dscale_dbias,
+    # n, h, blocks, dropout, dtype, stream
+    "nrmt_fused_add_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, *_DROP, _I, _P],
+    # q, k, v, key_mask, out, u, s, h, n_heads, dropout, dtype, stream
+    "nrmt_short_mhsa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *_DROP, _I, _P],
+    # q, k, v, key_mask, do, dq, dk, dv, u, s, h, n_heads, dropout, dtype,
+    # stream
+    "nrmt_short_mhsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            *_DROP, _I, _P],
+    # out, n, h, seed, thresh, stream
+    "nrmt_ln_keep_mask": [_P, _L, _I, ctypes.c_ulonglong, ctypes.c_uint, _P],
+    # out, u, n_heads, s, seed, thresh, stream
+    "nrmt_attn_keep_mask": [_P, _L, _I, _I, ctypes.c_ulonglong,
+                            ctypes.c_uint, _P],
+    # leaves, leaf_group, chunk_leaf, chunk_start, n_leaves, n_chunks,
+    # chunk, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, lr0, lr1, stream
+    "nrmt_fused_adam": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                        _F, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

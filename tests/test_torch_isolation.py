@@ -41,7 +41,10 @@ def _loaded_after(imports):
 
 def test_import_loads_no_jax_and_no_jax_package():
     modules = _modules()
-    assert f"{PKG}.serving" in modules and f"{PKG}.ops.short_mhsa" in modules
+    assert {f"{PKG}.{m}" for m in (
+        "serving", "ops.short_mhsa", "ops.fused_adam", "ops.dropout_bits",
+        "models.two_tower", "train.state", "train.step", "train.loop",
+    )} <= set(modules)
     # a site hook may preload modules: compare with a bare interpreter
     baseline = _loaded_after([])
     loaded = _loaded_after(modules)

@@ -3,8 +3,10 @@ ops) against the JAX kernels they replace, on the CPU.
 
 On CPU tensors the port's wrappers run their plain PyTorch versions; the
 JAX side runs the Pallas kernels in interpret mode, as tests/
-test_pallas_mhsa.py and tests/test_pallas_ln.py run them. Everything is
-float32, and matmuls are kept out of TF32 on both sides. The CUDA kernels
+test_pallas_mhsa.py and tests/test_pallas_ln.py run them, forward and
+backward (``torch.autograd`` through the port's functions against
+``jax.grad`` through the Pallas ``custom_vjp``). Float32 unless a test
+says bfloat16, and matmuls are kept out of TF32 on both sides. The CUDA kernels
 themselves are held against the same plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -13,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from news_recommendation_mind_tpu.models.attention import (  # noqa: E402
@@ -72,7 +75,7 @@ def test_short_mhsa_matches_pallas(layout):
     got3 = got.numpy().reshape(U, S, H)
     assert np.abs(got3[FULLY_MASKED]).max() == 0.0
     assert np.isfinite(got3).all()
-    assert _build.LAUNCHES == {"fused_add_ln": 0, "short_mhsa": 0}
+    assert set(_build.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("n,h,oracle", [(64, 128, "kernel"),
@@ -95,7 +98,7 @@ def test_fused_add_ln_matches_jax(n, h, oracle):
                        eps=1e-12)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
-    assert _build.LAUNCHES == {"fused_add_ln": 0, "short_mhsa": 0}
+    assert set(_build.LAUNCHES.values()) == {0}
 
 
 def test_fused_add_ln_plain_stats():
@@ -115,16 +118,6 @@ def test_fused_add_ln_plain_stats():
     np.testing.assert_allclose(
         rstd.numpy(), (1.0 / s.var(-1, unbiased=False, keepdim=True).sqrt())
         .numpy(), rtol=1e-4)
-
-
-@pytest.mark.parametrize("call", ["mhsa", "ln"])
-def test_dropout_raises(call):
-    t = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        if call == "mhsa":
-            short_mhsa(t, t, t, torch.ones(2, 2), 2, p_drop=0.1, seq_len=2)
-        else:
-            fused_add_ln(t, t, torch.ones(8), torch.zeros(8), p_drop=0.1)
 
 
 @pytest.mark.parametrize("bad", ["long_seq", "heads", "mask_shape",
@@ -167,3 +160,100 @@ def test_attention_primitives_match_jax():
                                    jnp.asarray(kv), jnp.asarray(m))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 6e-2)])
+def test_fused_add_ln_gradients_match_pallas(dtype, tol):
+    """dx, dres, dscale, dbias of sum(y·w) at p_drop = 0. float32 differs
+    by summation order only (1e-5). In bfloat16 both sides round dx to
+    bf16 (2^-8 relative) and accumulate dscale/dbias in float32 over 64
+    rows of bf16-rounded inputs: 6e-2 absolute on values of order 1-10."""
+    n, h = 64, 128
+    rng = np.random.default_rng(4)
+    x, res, w = (rng.standard_normal((n, h)).astype(np.float32)
+                 for _ in range(3))
+    scale = (rng.standard_normal(h) * 0.1 + 1.0).astype(np.float32)
+    bias = (rng.standard_normal(h) * 0.1).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+
+    def jax_loss(x, res, scale, bias):
+        y = jax_fused_add_ln(x, res, scale, bias, eps=1e-12,
+                             force_kernel=True, interpret=True)
+        return jnp.sum(y.astype(jnp.float32) * jnp.asarray(w))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(x, jdt), jnp.asarray(res, jdt), jnp.asarray(scale),
+        jnp.asarray(bias))
+    leaves = [torch.from_numpy(x).to(tdt), torch.from_numpy(res).to(tdt),
+              torch.from_numpy(scale), torch.from_numpy(bias)]
+    for t in leaves:
+        t.requires_grad_()
+    y = fused_add_ln(*leaves, eps=1e-12)
+    got = torch.autograd.grad((y.float() * torch.from_numpy(w)).sum(),
+                              leaves)
+    assert got[0].dtype == got[1].dtype == tdt
+    assert got[2].dtype == got[3].dtype == torch.float32
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(wnt, np.float32),
+                                   rtol=tol, atol=tol)
+    assert set(_build.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("layout", ["3d", "flat"])
+def test_short_mhsa_gradients_match_pallas(layout):
+    """dq, dk, dv of sum(out·w) with ragged masks; the fully-masked
+    article's gradients are exactly 0 on both sides."""
+    q, k, v, mask = _mhsa_inputs(seed=5)
+    w = np.random.default_rng(6).standard_normal((U, S, H)).astype(np.float32)
+    if layout == "flat":
+        q, k, v, w = (t.reshape(U * S, H) for t in (q, k, v, w))
+        kw = {"seq_len": S}
+    else:
+        kw = {}
+
+    def jax_loss(q, k, v):
+        out = jax_short_mhsa(q, k, v, jnp.asarray(mask), NH, interpret=True,
+                             force_kernel=True, **kw)
+        return jnp.sum(out * jnp.asarray(w))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out = short_mhsa(*leaves, torch.from_numpy(mask), NH, **kw)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), leaves)
+    for g, wnt in zip(got, want):
+        assert g.shape == q.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt),
+                                   rtol=1e-5, atol=1e-5)
+        assert np.abs(g.numpy().reshape(U, S, H)[FULLY_MASKED]).max() == 0.0
+        assert np.abs(np.asarray(wnt).reshape(U, S, H)[FULLY_MASKED]
+                      ).max() == 0.0
+    assert set(_build.LAUNCHES.values()) == {0}
+
+
+def test_short_mhsa_gradients_bfloat16_close():
+    """bfloat16 q/k/v: both kernels compute in float32 from the rounded
+    inputs and round the gradients once (2^-8 relative), so 3e-2 absolute
+    on gradients of order 1."""
+    q, k, v, mask = _mhsa_inputs(seed=7)
+    w = np.random.default_rng(8).standard_normal((U, S, H)).astype(np.float32)
+
+    def jax_loss(q, k, v):
+        out = jax_short_mhsa(q, k, v, jnp.asarray(mask), NH, interpret=True,
+                             force_kernel=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(w))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    leaves = [torch.from_numpy(t).bfloat16().requires_grad_()
+              for t in (q, k, v)]
+    out = short_mhsa(*leaves, torch.from_numpy(mask), NH)
+    got = torch.autograd.grad((out.float() * torch.from_numpy(w)).sum(),
+                              leaves)
+    for g, wnt in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(wnt, np.float32),
+                                   rtol=3e-2, atol=3e-2)

@@ -149,6 +149,31 @@ def test_encode_user_from_reprs_matches_jax(jax_params, dtype):
                                rtol=tol, atol=tol)
 
 
+def test_forward_and_live_user_encoding_match_jax(jax_params):
+    """The training forward over a batch dict (candidates and history
+    encoded live) and ``encode_user``, deterministic, float32."""
+    tokens, attn, _, his_mask = _inputs()
+    batch = {"cdd_token": tokens, "cdd_attn": attn, "his_token": tokens,
+             "his_attn": attn, "his_mask": his_mask[:, :N]}
+    jmodel = _jax_model(jnp.float32)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    want = jmodel.apply(jax_params, jbatch)
+    want_user = jmodel.apply(jax_params, jbatch["his_token"],
+                             jbatch["his_attn"], jbatch["his_mask"],
+                             method=JaxPLM.encode_user)
+    model = _torch_model(torch.float32, jax_params)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        got = model(tbatch)
+        got_user = model.encode_user(tbatch["his_token"], tbatch["his_attn"],
+                                     tbatch["his_mask"])
+    assert got.shape == (B, N) and got_user.shape == (B, 1, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_user.numpy(), np.asarray(want_user),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="XFormer slice"):
         bert_variant("longformer")
